@@ -1,14 +1,14 @@
-"""Benchmark: FULL fused per-frame step throughput on one chip.
+"""Benchmark: FULL fused per-frame step throughput on one GPU.
 
-Prints ONE JSON line:
+Prints a device line, then ONE JSON line:
   {"metric": "full_frame_step_fps_per_chip", "value": N, "unit": "frames/s",
-   "vs_baseline": N / 200.0}
+   "vs_baseline": N / 200.0, "device": {...}}
 
 Baseline anchor: the reference is a real-time CPU system at ~20 camera
-fps (EuRoC); the driver target is >=10x real-time per chip => 200 fps
+fps (EuRoC); the target is >=10x real-time per chip => 200 fps
 (BASELINE.md). vs_baseline = achieved_fps / 200.
 
-What is measured (round-2, VERDICT item #4): the fused FULL frame step
+What is measured: the fused FULL frame step
 (`pipeline.full_filter_step`) = the whole of the reference's per-frame
 hot path `UVioManager::track_image_and_update` + `do_feature_propagate_
 update` (UVioManager.cpp:114-205, VioManager.cpp:323-714) as one jitted
@@ -28,27 +28,44 @@ in a real run.
 
 Precision: f32 compute / f64 time axis (validated on the simulator
 against f64: same ATE, consistent NEES).
+
+The measurement needs a GPU: on any other device it exits non-zero
+without a result.
 """
 
 import json
+import subprocess
+import sys
 import time
 
 
-def main():
-    import uvio_tpu  # noqa: F401  (x64 + cache config)
+def gpu_device_line():
+    """(jax device, nvidia-smi name and power limit) of the first
+    device; raises SystemExit when it is not a GPU — no fallback."""
     import jax
-    import jax.numpy as jnp
 
-    from uvio_tpu.eval.capture import capture_sim_bundles
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(
+            f"needs an NVIDIA GPU; JAX found platform {dev.platform!r} "
+            f"({dev.device_kind}). No fallback."
+        )
+    # nvidia-smi in a child process: this process keeps the only JAX
+    # client on the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    return dev, smi
 
-    T_WARM, T_BENCH = 20, 100  # captured frames: warmup prefix + bench window
 
-    full_cfg, state0, bench_bundles = capture_sim_bundles(
-        n_warm=T_WARM, n_bench=T_BENCH, seed=7, max_slam=25, dtype="float32"
-    )
-    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *bench_bundles)
+def make_scan(full_cfg):
+    """The jitted offline replay: `full_filter_step` scanned over a
+    stacked FrameBundle sequence. Returns (final state, MSCKF rows used
+    per frame)."""
+    import jax
 
-    from uvio_tpu.pipeline import full_filter_step
+    from uvio_jax.pipeline import full_filter_step
 
     def run_chunk(state, fbs):
         def body(st, fb):
@@ -57,7 +74,27 @@ def main():
 
         return jax.lax.scan(body, state, fbs)
 
-    run = jax.jit(run_chunk)
+    return jax.jit(run_chunk)
+
+
+def main():
+    import uvio_jax  # noqa: F401  (x64 + cache config)
+    import jax
+    import jax.numpy as jnp
+
+    from uvio_jax.eval.capture import capture_sim_bundles
+
+    dev, smi = gpu_device_line()
+    print(f"device: {dev.device_kind} x{len(jax.devices())} | {smi}", flush=True)
+
+    T_WARM, T_BENCH = 20, 100  # captured frames: warmup prefix + bench window
+
+    full_cfg, state0, bench_bundles = capture_sim_bundles(
+        n_warm=T_WARM, n_bench=T_BENCH, seed=7, max_slam=25, dtype="float32"
+    )
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *bench_bundles)
+
+    run = make_scan(full_cfg)
     out_state, used = run(state0, stacked)
     jax.block_until_ready(out_state.cov)  # compile + warm
 
@@ -75,10 +112,16 @@ def main():
                 "value": round(fps, 2),
                 "unit": "frames/s",
                 "vs_baseline": round(fps / 200.0, 3),
+                "device": {
+                    "platform": dev.platform,
+                    "kind": dev.device_kind,
+                    "count": len(jax.devices()),
+                    "nvidia_smi": smi,
+                },
             }
         )
     )
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

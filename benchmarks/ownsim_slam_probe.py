@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Probe: own-sim ATE with/without SLAM across seeds (VERDICT r3 weak #1)."""
+"""Probe: own-sim ATE with/without SLAM across seeds."""
 import os
 import sys
 
@@ -14,7 +14,7 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 
 import numpy as np  # noqa: E402
 
-from uvio_tpu.eval import ate  # noqa: E402
+from uvio_jax.eval import ate  # noqa: E402
 
 sys.path.insert(0, os.path.join(REPO, "tests"))
 import importlib.util  # noqa: E402

@@ -3,7 +3,7 @@
 //
 // Mirrors ov_msckf/src/run_simulation.cpp's ROS-free loop (same gt init,
 // same one-frame camera buffering) and additionally DUMPS the exact
-// measurement streams so uvio_tpu can be replayed on identical inputs:
+// measurement streams so uvio_jax can be replayed on identical inputs:
 //
 //   <out>/imu.csv    t wx wy wz ax ay az
 //   <out>/cam.csv    t camid featid u v          (raw distorted pixels)

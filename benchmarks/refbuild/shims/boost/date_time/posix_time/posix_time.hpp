@@ -1,7 +1,7 @@
 // std::chrono-backed stand-in for the tiny boost::posix_time surface the
 // reference benchmark build needs (ptime, microsec_clock::local_time and
 // durations' total_*seconds). Built only for the out-of-repo head-to-head
-// reference executable — NOT part of the uvio_tpu framework.
+// reference executable — NOT part of the uvio_jax framework.
 #pragma once
 #include <chrono>
 #include <cstdint>

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Debugging harness for the SLAM accuracy gap (VERDICT r2 item #2).
+"""Debugging harness for the SLAM accuracy gap.
 
-Replays uvio_tpu on the reference-dumped streams (like head2head) with
+Replays uvio_jax on the reference-dumped streams (like head2head) with
 tweakable knobs, and prints per-frame error statistics of both
 estimators against groundtruth so divergence events are localizable.
 
@@ -40,9 +40,9 @@ def load_frames(out, n_cams):
 
 
 def replay(out, cdir, overrides, collect_diag=False, true_map=None):
-    from uvio_tpu.manager import VioManager
-    from uvio_tpu.utils.config import load_config
-    from uvio_tpu.update.representations import landmark_global
+    from uvio_jax.manager import VioManager
+    from uvio_jax.utils.config import load_config
+    from uvio_jax.update.representations import landmark_global
 
     cfg, extras = load_config(cdir)
     cfg = dataclasses.replace(
@@ -97,9 +97,9 @@ def gt_landmarks(out, cfg):
     sim noise this is a near-true landmark map, fid -> p_FinG."""
     import jax.numpy as jnp
 
-    from uvio_tpu.cam import models as cam_models
-    from uvio_tpu.math import quat_to_rot
-    from uvio_tpu.update.triangulation import triangulate_batch
+    from uvio_jax.cam import models as cam_models
+    from uvio_jax.math import quat_to_rot
+    from uvio_jax.update.triangulation import triangulate_batch
 
     gt = np.loadtxt(os.path.join(out, "gt.txt"))
     t_gt = gt[:, 0]
@@ -160,7 +160,7 @@ def gt_landmarks(out, cfg):
 
 
 def per_frame_err(est, gt_file, label):
-    from uvio_tpu.eval.traj import ate, load_tum
+    from uvio_jax.eval.traj import ate, load_tum
 
     te, qe, pe = est
     tg, qg, pg = load_tum(gt_file)
@@ -184,30 +184,30 @@ def main():
     if args.max_slam is not None:
         overrides["max_slam"] = args.max_slam
 
-    from uvio_tpu.utils.config import load_config
+    from uvio_jax.utils.config import load_config
     cfg0, _ = load_config(cdir)
     tm = gt_landmarks(out, cfg0)
     print(f"true map: {len(tm)} landmarks triangulated from gt poses")
     est, diags = replay(out, cdir, overrides, collect_diag=True, true_map=tm)
     gt = os.path.join(out, "gt.txt")
 
-    from uvio_tpu.eval.traj import ate, load_tum
+    from uvio_jax.eval.traj import ate, load_tum
     tg, qg, pg = load_tum(gt)
-    r_tpu = ate(est[0], est[1], est[2], tg, qg, pg, method="se3")
+    r_ours = ate(est[0], est[1], est[2], tg, qg, pg, method="se3")
     tr, qr, pr = load_tum(os.path.join(out, "ref_est.txt"))
     r_ref = ate(tr, qr, pr, tg, qg, pg, method="se3")
-    print(f"[{args.tag}] tpu ATE {float(r_tpu['rmse_pos']):.4f} m / "
-          f"{float(r_tpu['rmse_ori_deg']):.3f} deg | "
+    print(f"[{args.tag}] ours ATE {float(r_ours['rmse_pos']):.4f} m / "
+          f"{float(r_ours['rmse_ori_deg']):.3f} deg | "
           f"ref {float(r_ref['rmse_pos']):.4f} m / "
           f"{float(r_ref['rmse_ori_deg']):.3f} deg")
 
     # per-frame error curves, decimated
-    t_t, e_t = per_frame_err(est, gt, "tpu")
+    t_t, e_t = per_frame_err(est, gt, "ours")
     t_r, e_r = per_frame_err((tr, qr, pr), gt, "ref")
     n = len(e_t)
     for i in range(0, n, max(1, n // 30)):
         d = diags[i] if i < len(diags) else {}
-        print(f"  t={t_t[i]:.2f} tpu_err={e_t[i]:.4f} "
+        print(f"  t={t_t[i]:.2f} ours_err={e_t[i]:.4f} "
               f"ref_err={e_r[min(i, len(e_r)-1)]:.4f} "
               f"n_slam={d.get('n_slam', '?')} msckf={d.get('msckf_used','?')} "
               f"lm_mean={d.get('lm_mean', float('nan')):.3f} "

@@ -19,9 +19,9 @@ sys.path.insert(0, REPO)
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from uvio_tpu.manager import CameraConfig, VioConfig, VioManager  # noqa: E402
-from uvio_tpu.math import quat_to_rot  # noqa: E402
-from uvio_tpu.sim import SimCamera, SimParams, Simulator, circle_trajectory  # noqa: E402
+from uvio_jax.manager import CameraConfig, VioConfig, VioManager  # noqa: E402
+from uvio_jax.math import quat_to_rot  # noqa: E402
+from uvio_jax.sim import SimCamera, SimParams, Simulator, circle_trajectory  # noqa: E402
 
 
 def run(stereo: bool, seed=21, duration=14.0):

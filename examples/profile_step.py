@@ -28,15 +28,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    import uvio_tpu  # noqa: F401
+    import uvio_jax  # noqa: F401
     from functools import partial
 
-    from uvio_tpu.filter.ekf import marginalize_clone
-    from uvio_tpu.filter.propagator import propagate_and_clone
-    from uvio_tpu.pipeline import StepConfig, filter_step
-    from uvio_tpu.types import StateLayout, init_state
-    from uvio_tpu.types.state import oldest_clone_slot
-    from uvio_tpu.update.msckf import msckf_update
+    from uvio_jax.filter.ekf import marginalize_clone
+    from uvio_jax.filter.propagator import propagate_and_clone
+    from uvio_jax.pipeline import StepConfig, filter_step
+    from uvio_jax.types import StateLayout, init_state
+    from uvio_jax.types.state import oldest_clone_slot
+    from uvio_jax.update.msckf import msckf_update
 
     print("backend:", jax.default_backend(), jax.devices()[0])
     layout = StateLayout(max_clones=12, max_imu_batch=24, max_slam=0)

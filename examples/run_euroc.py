@@ -27,8 +27,8 @@ def main():
 
     import numpy as np
 
-    import uvio_tpu  # noqa: F401
-    from uvio_tpu.utils.euroc import EurocDataset, run_euroc
+    import uvio_jax  # noqa: F401
+    from uvio_jax.utils.euroc import EurocDataset, run_euroc
 
     t, q, p = run_euroc(
         args.dataset_root, args.config_dir, out_path=args.out,
@@ -38,7 +38,7 @@ def main():
     ds = EurocDataset(args.dataset_root)
     gt = ds.groundtruth()
     if gt is not None and len(t):
-        from uvio_tpu.eval import ate
+        from uvio_jax.eval import ate
 
         res = ate(t, q, p, gt["t"], gt["q_GtoI"], gt["p"], method=args.align)
         print(

@@ -6,24 +6,26 @@ Two axes, matching SURVEY §2.6:
    the FULL fused frame step (UWB drain + propagate/clone + MSCKF +
    SLAM + marginalize) vmapped and sharded over mesh axis "dp". Inputs
    are FrameBundles captured from a real simulated host loop
-   (`uvio_tpu.eval.capture`), not random tensors. Weak scaling: B = n
+   (`uvio_jax.eval.capture`), not random tensors. Weak scaling: B = n
    devices, report sequence-frames/s and efficiency.
 
 2. **Sharded bundle-adjustment strong scaling** — one fixed keyframe
    x landmark map refined by `parallel/ba.py` on a 2D ("kf", "lm")
    mesh; report solve time vs devices.
 
-On this box multi-chip TPU hardware is not available, so the committed
-table (`benchmarks/scaling_results.json`) is measured on a virtual
-N-device CPU mesh. IMPORTANT caveat on reading it: the N virtual
-devices SHARE one host's physical cores (a 1-device XLA:CPU run
+The committed table (`benchmarks/scaling_results.json`) is measured on
+a virtual N-device CPU mesh. IMPORTANT caveat on reading it: the N
+virtual devices SHARE one host's physical cores (a 1-device XLA:CPU run
 already uses every core via intra-op parallelism), so NO speedup is
 achievable by construction — the table measures the *partitioning +
 collective overhead* of the sharded programs (lower is better), and
 validates that the sharded programs compile, execute, and match the
 unsharded math (equality is asserted in tests/test_ba.py). Real
-scaling numbers require multi-chip ICI; per-chip TPU throughput is
-bench.py's number.
+scaling numbers need several GPUs (`chip_smoke.py --multi` runs the
+same two programs on four); one-GPU throughput is bench.py's number.
+
+`--multiproc` is a CPU-only demo: its gloo-connected child processes
+are pinned to the CPU backend, and no GPU path runs it.
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/scaling.py --write benchmarks/scaling_results.json
@@ -42,7 +44,7 @@ _CAPTURED = {}
 def _bundles(T):
     """Capture (once) T real FrameBundles + warm state from a sim run."""
     if "data" not in _CAPTURED:
-        from uvio_tpu.eval.capture import capture_sim_bundles
+        from uvio_jax.eval.capture import capture_sim_bundles
 
         _CAPTURED["data"] = capture_sim_bundles(
             n_warm=15, n_bench=T, seed=7, max_slam=25, dtype="float32"
@@ -57,7 +59,7 @@ def run_filter_dp(n_devices: int, T=40, n_rep=3):
     from functools import partial
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from uvio_tpu.pipeline import full_filter_step
+    from uvio_jax.pipeline import full_filter_step
 
     full_cfg, state0, bundles = _bundles(T)
     B = n_devices
@@ -99,14 +101,14 @@ def run_ba_strong(n_devices: int, N=32, L=2048, iters=8, n_rep=3):
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from uvio_tpu.parallel.ba import BAOptions, ba_solve
+    from uvio_jax.parallel.ba import BAOptions, ba_solve
 
     rng = np.random.default_rng(0)
     th = np.linspace(0, 2 * np.pi, N, endpoint=False)
     p = np.stack([3 * np.cos(th), 3 * np.sin(th), 0.1 * np.sin(2 * th)], axis=1)
     lm = rng.uniform(-1.5, 1.5, (L, 3))
     # cameras look at the origin
-    from uvio_tpu.math import rot_to_quat
+    from uvio_jax.math import rot_to_quat
 
     qs, Rs = [], []
     for k in range(N):
@@ -150,13 +152,13 @@ def run_ba_strong(n_devices: int, N=32, L=2048, iters=8, n_rep=3):
 
 
 def _multiproc_worker():
-    """One process of the multi-host demo: init jax.distributed from
-    env, build the DCN-aware ("kf","lm") mesh (kf axis = process axis),
+    """One process of the multi-process CPU demo: init jax.distributed
+    from env, build the ("kf","lm") mesh (kf axis = process axis),
     run the sharded BA, and check the final cost against the
     single-process value shipped via env."""
     import jax
 
-    from uvio_tpu.parallel.distributed import (
+    from uvio_jax.parallel.distributed import (
         init_from_env, make_ba_mesh, print_comm_table,
     )
 
@@ -164,7 +166,7 @@ def _multiproc_worker():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from uvio_tpu.parallel.ba import BAOptions, ba_solve
+    from uvio_jax.parallel.ba import BAOptions, ba_solve
 
     pid = jax.process_count(), jax.process_index()
     q, p, lm0, obs, mask, lm_true = _ba_problem(N=8, L=64)
@@ -202,7 +204,7 @@ def _ba_problem(N=8, L=64, seed=3):
     rng = np.random.default_rng(seed)
     import jax.numpy as jnp
 
-    from uvio_tpu.math import rot_to_quat
+    from uvio_jax.math import rot_to_quat
 
     th = np.linspace(0, 2 * np.pi, N, endpoint=False)
     p = np.stack([3 * np.cos(th), 3 * np.sin(th), 0.1 * np.sin(2 * th)], axis=1)
@@ -226,9 +228,9 @@ def _ba_problem(N=8, L=64, seed=3):
 
 def run_multiproc(n_procs=2, local_devices=4):
     """Spawn an n-process gloo cluster on this host (each with
-    `local_devices` virtual CPU devices) and run the DCN-aware sharded
-    BA across them — the 2-process x 4-device demonstration of the
-    multi-host path (kf axis over DCN, lm axis within a host)."""
+    `local_devices` virtual CPU devices) and run the sharded BA across
+    them — the 2-process x 4-device demonstration of the multi-process
+    path (kf axis across processes, lm axis within one). CPU only."""
     import socket
     import subprocess
     import sys
@@ -236,7 +238,7 @@ def run_multiproc(n_procs=2, local_devices=4):
     import jax
     import jax.numpy as jnp
 
-    from uvio_tpu.parallel.ba import BAOptions, ba_solve
+    from uvio_jax.parallel.ba import BAOptions, ba_solve
 
     # single-process reference value for the workers to check against
     q, p, lm0, obs, mask, _ = _ba_problem(N=8, L=64)
@@ -300,7 +302,7 @@ def main():
             "cores, so no speedup is achievable by construction; this "
             "table measures partitioning+collective overhead of the "
             "sharded programs and validates they execute. Real scaling "
-            "needs multi-chip ICI."
+            "needs several GPUs."
         )
     for n in device_counts:
         results["filter_dp_seq_frames_per_s"][n] = run_filter_dp(n)

@@ -48,10 +48,10 @@ def main():
 
     import numpy as np
 
-    import uvio_tpu  # noqa: F401
-    from uvio_tpu.manager import CameraConfig, VioConfig, VioManager
-    from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
-    from uvio_tpu.eval import ate, nees
+    import uvio_jax  # noqa: F401
+    from uvio_jax.manager import CameraConfig, VioConfig, VioManager
+    from uvio_jax.sim import SimParams, Simulator, circle_trajectory
+    from uvio_jax.eval import ate, nees
 
     uwb_anchors = {}
     if args.uwb:
@@ -85,7 +85,7 @@ def main():
         )
     ]
     if args.uwb:
-        from uvio_tpu.uwb_manager import AnchorConfig, UVioConfig, UVioManager
+        from uvio_jax.uwb_manager import AnchorConfig, UVioConfig, UVioManager
 
         rng = np.random.default_rng(1)
         anchor_cfgs = [
@@ -133,7 +133,7 @@ def main():
 
     tracker = None
     if args.klt:
-        from uvio_tpu.frontend.tracker import KLTTracker
+        from uvio_jax.frontend.tracker import KLTTracker
 
         tracker = KLTTracker(cam.intrinsics, cam.model, num_features=120, grid=(6, 8))
 
@@ -186,7 +186,7 @@ def main():
     if args.record:
         import os as _os
 
-        from uvio_tpu.eval import save_tum
+        from uvio_jax.eval import save_tum
 
         _os.makedirs(args.record, exist_ok=True)
         save_tum(_os.path.join(args.record, "est.txt"), est_t, np.asarray(est_q), np.asarray(est_p))

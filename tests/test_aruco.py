@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from uvio_tpu.frontend.aruco import ARUCO_ID_BASE, ArucoTracker, histogram_equalize
+from uvio_jax.frontend.aruco import ARUCO_ID_BASE, ArucoTracker, histogram_equalize
 
 
 def render_tag(tag_id=7, size=120, pos=(60, 40), img_hw=(240, 320)):

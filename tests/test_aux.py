@@ -8,7 +8,7 @@ import jax.numpy as jnp
 
 
 def test_logger_levels(capsys):
-    from uvio_tpu.utils import logger
+    from uvio_jax.utils import logger
 
     old = logger.get_verbosity()
     try:
@@ -29,8 +29,8 @@ def test_logger_levels(capsys):
 
 
 def test_perturb_calibration():
-    from uvio_tpu.manager import CameraConfig, VioConfig
-    from uvio_tpu.sim import perturb_calibration
+    from uvio_jax.manager import CameraConfig, VioConfig
+    from uvio_jax.sim import perturb_calibration
 
     cfg = VioConfig(
         cameras=[CameraConfig()], calib_imu_intrinsics=True, calib_imu_g_sensitivity=True
@@ -55,8 +55,8 @@ def test_perturb_calibration():
 
 def test_triangulate_1d():
     """Depth-only solve recovers a point when bearings are exact."""
-    from uvio_tpu.math import quat_to_rot
-    from uvio_tpu.update.triangulation import triangulate_1d, triangulate_linear
+    from uvio_jax.math import quat_to_rot
+    from uvio_jax.update.triangulation import triangulate_1d, triangulate_linear
 
     rng = np.random.default_rng(1)
     p_true = np.array([0.5, -0.3, 4.0])
@@ -83,8 +83,8 @@ def test_triangulate_1d():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from uvio_tpu.manager import CameraConfig, VioConfig, VioManager
-    from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+    from uvio_jax.manager import CameraConfig, VioConfig, VioManager
+    from uvio_jax.sim import SimParams, Simulator, circle_trajectory
 
     sim = Simulator(SimParams(seed=2), trajectory=circle_trajectory(duration=10.0))
     cam = sim.params.cameras[0]
@@ -143,7 +143,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 def test_native_csv_loader(tmp_path):
     """Native CSV parser matches the python reader on numeric files."""
-    from uvio_tpu.native import load_csv
+    from uvio_jax.native import load_csv
 
     p = tmp_path / "data.csv"
     p.write_text(
@@ -172,8 +172,8 @@ def test_native_csv_loader(tmp_path):
 def test_get_active_tracks():
     """retriangulate_active_tracks equivalent: active features map near
     their true 3D positions."""
-    from uvio_tpu.manager import CameraConfig, VioConfig, VioManager
-    from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+    from uvio_jax.manager import CameraConfig, VioConfig, VioManager
+    from uvio_jax.sim import SimParams, Simulator, circle_trajectory
 
     sim = Simulator(SimParams(seed=4, num_pts=40), trajectory=circle_trajectory(duration=10.0))
     cam = sim.params.cameras[0]
@@ -208,15 +208,66 @@ def test_get_active_tracks():
 
 
 def test_matmul_precision_contract():
-    """The EKF covariance algebra requires exact-f32 matmuls. On TPU the
-    JAX default is one-pass bf16 on the MXU, which corrupts P within
-    ~1.5 s of filtering (measured on-chip: negative covariance diagonal,
-    round-3). uvio_tpu/__init__.py pins the global default to 'highest';
-    this guards the pin (the failure itself is only reproducible on real
-    TPU hardware, which CI does not have)."""
+    """The EKF covariance algebra requires full-precision f32 matmuls. On
+    an NVIDIA GPU an f32 matmul may run in TF32 (about three decimal
+    digits), which breaks positive definiteness of P within seconds of
+    filtering. uvio_jax/__init__.py pins the global default to 'highest';
+    this guards the pin (the failure itself needs a GPU to reproduce)."""
     import jax
 
-    import uvio_tpu  # noqa: F401
+    import uvio_jax  # noqa: F401
 
     assert jax.config.jax_default_matmul_precision == "highest"
     assert jax.config.jax_enable_x64 is True
+
+
+@pytest.mark.parametrize("env_dir", [None, "custom_cache"])
+def test_compile_cache_dir_rule(tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is left to JAX; otherwise the
+    cache sits at <checkout>/.jax_cache (fresh interpreter: the rule runs
+    at import)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = repo
+    want = os.path.join(repo, ".jax_cache")
+    if env_dir is not None:
+        want = str(tmp_path / env_dir)
+        env["JAX_COMPILATION_CACHE_DIR"] = want
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import jax, uvio_jax; print(jax.config.jax_compilation_cache_dir)"],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == want
+
+
+def test_filter_state_pytree():
+    """FilterState: one leaf per field, a jit round trip keeps values and
+    dtypes, `.replace` copies without mutating."""
+    import dataclasses
+
+    import jax
+
+    from uvio_jax.types import StateLayout, init_state
+
+    layout = StateLayout(max_clones=3, max_imu_batch=8, max_slam=2, max_anchors=1)
+    st = init_state(layout, dtype=jnp.float32)
+    leaves, treedef = jax.tree.flatten(st)
+    assert len(leaves) == len(dataclasses.fields(st))
+    back = jax.jit(lambda s: s)(st)
+    assert jax.tree.structure(back) == treedef
+    for a, b in zip(leaves, jax.tree.leaves(back)):
+        assert a.dtype == b.dtype and np.array_equal(np.asarray(a), np.asarray(b))
+    assert st.time.dtype == jnp.float64 and st.p.dtype == jnp.float32
+
+    st2 = jax.jit(lambda s: s.replace(p=s.p + 1.0))(st)
+    np.testing.assert_array_equal(np.asarray(st2.p), np.ones(3))
+    np.testing.assert_array_equal(np.asarray(st.p), np.zeros(3))
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        st.p = st2.p

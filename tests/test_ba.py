@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation as Rsp
 
-from uvio_tpu.math import quat_to_rot, rot_to_quat
-from uvio_tpu.parallel.ba import BAOptions, ba_solve
+from uvio_jax.math import quat_to_rot, rot_to_quat
+from uvio_jax.parallel.ba import BAOptions, ba_solve
 
 RNG = np.random.default_rng(3)
 
@@ -131,12 +131,11 @@ def test_ba_masked_padding_inert():
 @pytest.mark.slow
 def test_map_backend_refine_realistic_on_mesh():
     """`MapBackend.refine` at a realistic map size (256 kf x 4096 lm)
-    through the 8-device 2D kf x lm mesh (VERDICT r4: the realistic
-    shape previously existed only in a hand-run table)."""
+    through the 8-device 2D kf x lm mesh."""
     from jax.sharding import Mesh
 
-    from uvio_tpu.parallel.ba import BAOptions
-    from uvio_tpu.parallel.map_backend import MapBackend, MapBackendOptions
+    from uvio_jax.parallel.ba import BAOptions
+    from uvio_jax.parallel.map_backend import MapBackend, MapBackendOptions
 
     rng = np.random.default_rng(11)
     N, L = 256, 4096

@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from uvio_tpu.cam import EQUI, RADTAN, distort, distort_jacobian, project, undistort
+from uvio_jax.cam import EQUI, RADTAN, distort, distort_jacobian, project, undistort
 
 RNG = np.random.default_rng(3)
 

@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from uvio_tpu.math import quat_to_rot
-from uvio_tpu.utils import load_config
+from uvio_jax.math import quat_to_rot
+from uvio_jax.utils import load_config
 
 REF = "/root/reference/config"
 
@@ -40,7 +40,7 @@ def test_load_euroc():
 
 @pytest.mark.skipif(not os.path.isdir(REF), reason="reference configs not mounted")
 def test_load_uvio():
-    from uvio_tpu.uwb_manager import UVioConfig
+    from uvio_jax.uwb_manager import UVioConfig
 
     cfg, extras = load_config(os.path.join(REF, "iros_2023_uvio"))
     assert isinstance(cfg, UVioConfig)
@@ -51,7 +51,7 @@ def test_load_uvio():
 
 @pytest.mark.skipif(not os.path.isdir(REF), reason="reference configs not mounted")
 def test_load_tumvi_fisheye():
-    from uvio_tpu.cam import EQUI
+    from uvio_jax.cam import EQUI
 
     cfg, extras = load_config(os.path.join(REF, "tum_vi"))
     assert cfg.cameras[0].model == EQUI
@@ -59,8 +59,8 @@ def test_load_tumvi_fisheye():
 
 @pytest.mark.skipif(not os.path.isdir(REF), reason="reference configs not mounted")
 def test_manager_builds_from_each_config():
-    from uvio_tpu.manager import VioManager
-    from uvio_tpu.uwb_manager import UVioConfig, UVioManager
+    from uvio_jax.manager import VioManager
+    from uvio_jax.uwb_manager import UVioConfig, UVioManager
 
     for name in ["euroc_mav", "iros_2023_uvio"]:
         cfg, _ = load_config(os.path.join(REF, name))
@@ -82,9 +82,9 @@ def test_euroc_config_end_to_end_sim():
 
     import jax.numpy as jnp
 
-    from uvio_tpu.eval import ate
-    from uvio_tpu.manager import VioManager
-    from uvio_tpu.sim import SimCamera, SimParams, Simulator, circle_trajectory
+    from uvio_jax.eval import ate
+    from uvio_jax.manager import VioManager
+    from uvio_jax.sim import SimCamera, SimParams, Simulator, circle_trajectory
 
     cfg, extras = load_config(os.path.join(REF, "euroc_mav"))
     # shrink state sizes for test runtime; keep the real calibration
@@ -159,3 +159,82 @@ def test_dyn_init_options_parsed():
     assert d.min_rec_cond == pytest.approx(1e-12)
     np.testing.assert_allclose(d.init_bias_g, 0.0)
     assert d.mle_opt_calib is False
+
+
+_STREAM_CONFIGS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "streams"
+)
+
+
+@pytest.mark.parametrize(
+    "rel",
+    sorted(
+        os.path.join(s, "config", f)
+        for s in ("mono", "stereo", "uwb")
+        for f in os.listdir(os.path.join(_STREAM_CONFIGS, s, "config"))
+    ),
+)
+def test_yaml_subset_matches_pyyaml(rel):
+    """Every vendored config file parses as PyYAML's safe loader reads
+    it (after dropping the OpenCV `%YAML:1.0` directive, which PyYAML
+    rejects); where PyYAML is absent, spot values are checked."""
+    from uvio_jax.utils.config import parse_yaml
+
+    with open(os.path.join(_STREAM_CONFIGS, rel)) as f:
+        text = f.read()
+    got = parse_yaml(text)
+    assert isinstance(got, dict) and got
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    if yaml is not None:
+        body = "\n".join(l for l in text.splitlines() if not l.startswith("%YAML"))
+        assert got == yaml.safe_load(body)
+    name = os.path.basename(rel)
+    if name == "estimator_config.yaml":
+        assert got["max_clones"] == 11 and got["use_fej"] is True
+        assert got["init_dyn_min_rec_cond"] == "1e-15"  # YAML 1.1: no dot, a string
+        assert got["init_dyn_bias_g"] == [0.0, 0.0, 0.0]
+    elif name == "kalibr_imu_chain.yaml":
+        assert got["imu0"]["Tw"] == [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]
+        assert got["imu0"]["gyroscope_noise_density"] == pytest.approx(1.6968e-4)
+    elif name == "kalibr_imucam_chain.yaml":
+        assert got["cam0"]["resolution"] == [752, 480]
+        assert len(got["cam0"]["T_imu_cam"]) == 4
+    elif name == "uwb_anchors.yaml":
+        assert got["anchor1"]["p_AinG"] == [-12.62, 2.24, 2.62]
+    elif name == "uwb_config.yaml":
+        assert got["tag0"]["calib_uwb_extrinsics"] is True
+
+
+def test_yaml_subset_constructs():
+    from uvio_jax.utils.config import parse_yaml
+
+    text = (
+        "%YAML:1.0 # directive\n"
+        "---\n"
+        "a: 1 # int\n"
+        "b: -2.5e+3\n"
+        "c: 'it''s # not a comment'\n"
+        'd: "x: y"\n'
+        "e: [[1, 2], [3, 4.0], []]\n"
+        "f:\n"
+        "- 7\n"
+        "-\n"
+        "  k: v\n"
+        "g:\n"
+        "  h: ~\n"
+        "  i: off\n"
+        "  j:\n"
+        "empty:\n"
+    )
+    assert parse_yaml(text) == {
+        "a": 1, "b": -2500.0, "c": "it's # not a comment", "d": "x: y",
+        "e": [[1, 2], [3, 4.0], []], "f": [7, {"k": "v"}],
+        "g": {"h": None, "i": False, "j": None}, "empty": None,
+    }
+    assert parse_yaml("# only a comment\n") is None
+    for bad in ("a: [1, 2\n", "a: 1\n  b: 2\n", "- x: 1\n", "a: 1\nfoo\n"):
+        with pytest.raises(ValueError):
+            parse_yaml(bad)

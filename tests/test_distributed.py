@@ -14,7 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_make_ba_mesh_single_process():
     import jax
 
-    from uvio_tpu.parallel.distributed import make_ba_mesh
+    from uvio_jax.parallel.distributed import make_ba_mesh
 
     mesh = make_ba_mesh()
     n = len(jax.devices())
@@ -27,7 +27,7 @@ def test_make_ba_mesh_single_process():
 
 
 def test_comm_volume_table_scaling():
-    from uvio_tpu.parallel.distributed import comm_volume_table
+    from uvio_jax.parallel.distributed import comm_volume_table
 
     rows = comm_volume_table(N=256, L=4096, pk=2, pl=4)
     by = {r.phase: r for r in rows}
@@ -47,7 +47,7 @@ def test_comm_volume_table_scaling():
 
 
 def test_init_from_env_noop_without_vars(monkeypatch):
-    from uvio_tpu.parallel import distributed as D
+    from uvio_jax.parallel import distributed as D
 
     for k in ("UVIO_COORDINATOR", "UVIO_NUM_PROCESSES", "UVIO_PROCESS_ID"):
         monkeypatch.delenv(k, raising=False)
@@ -56,9 +56,10 @@ def test_init_from_env_noop_without_vars(monkeypatch):
 
 @pytest.mark.slow
 def test_multiproc_ba_demo():
-    """2-process x 2-virtual-device gloo cluster: the cross-process
-    sharded BA must match the single-process solve (scaling.py worker
-    asserts the cost agreement internally)."""
+    """2-process x 2-virtual-device gloo cluster (a CPU-only demo; the
+    children are pinned to the CPU): the cross-process sharded BA must
+    match the single-process solve (scaling.py worker asserts the cost
+    agreement internally)."""
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")

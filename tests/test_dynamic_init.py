@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from uvio_tpu.init.cpi import preintegrate
-from uvio_tpu.init.dynamic_init import (
+from uvio_jax.init.cpi import preintegrate
+from uvio_jax.init.dynamic_init import (
     DynamicInitOptions,
     result_to_state,
     solve_dynamic_init,
 )
-from uvio_tpu.math import quat_to_rot
-from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+from uvio_jax.math import quat_to_rot
+from uvio_jax.sim import SimParams, Simulator, circle_trajectory
 
 G = 9.81
 
@@ -28,7 +28,7 @@ def make_window(sim, n_pose=6, cam_dt=0.3, f_max=20, noise=False, seed=0):
     while t <= pose_times[-1] + 0.02:
         st = sim.get_gt_state(t)
         # exact IMU (no noise, no bias)
-        import uvio_tpu.sim.bspline as bs
+        import uvio_jax.sim.bspline as bs
 
         s = bs.state_at_batch(sim.controls, sim.t0_traj, sim.dt_ctrl, jnp.asarray([t]))
         R = np.asarray(s["R_GtoI"][0])
@@ -48,7 +48,7 @@ def make_window(sim, n_pose=6, cam_dt=0.3, f_max=20, noise=False, seed=0):
     all_a = np.stack(all_a)
 
     # slice with exact boundary interpolation (the production path)
-    from uvio_tpu.filter.propagator import select_imu_readings_np
+    from uvio_jax.filter.propagator import select_imu_readings_np
 
     M = 128
     imu_t = np.zeros((n_pose - 1, M))
@@ -61,7 +61,7 @@ def make_window(sim, n_pose=6, cam_dt=0.3, f_max=20, noise=False, seed=0):
         imu_t[i], imu_w[i], imu_a[i] = tt, ww, aa
 
     # exact normalized obs of map points in the I0 frame convention
-    import uvio_tpu.sim.bspline as bs
+    import uvio_jax.sim.bspline as bs
 
     states = bs.state_at_batch(
         sim.controls, sim.t0_traj, sim.dt_ctrl, jnp.asarray(pose_times)
@@ -185,8 +185,8 @@ def test_dynamic_init_with_noise():
 def test_dynamic_init_end_to_end():
     """Moving-from-start sequence: dynamic init fires, window replays,
     and the filter tracks (posyaw ATE bounded)."""
-    from uvio_tpu.eval import ate
-    from uvio_tpu.manager import CameraConfig, VioConfig, VioManager
+    from uvio_jax.eval import ate
+    from uvio_jax.manager import CameraConfig, VioConfig, VioManager
 
     sim = Simulator(
         SimParams(seed=11), trajectory=circle_trajectory(duration=24.0, lap_s=8.0)
@@ -241,7 +241,7 @@ def test_cpi_v1_closed_form_matches_groundtruth():
     groundtruth checks as the midpoint scheme — and tighter on COARSE
     intervals, where the closed form is exact under piecewise-constant
     w/a while midpoint truncates."""
-    from uvio_tpu.init.cpi import preintegrate_v1
+    from uvio_jax.init.cpi import preintegrate_v1
 
     sim = Simulator(SimParams(seed=5), trajectory=circle_trajectory(duration=14.0))
     (imu_t, imu_w, imu_a), _, _, gt = make_window(sim, n_pose=2, cam_dt=0.5)
@@ -259,7 +259,7 @@ def test_cpi_v1_closed_form_matches_groundtruth():
 
     # coarse-interval exactness: constant w/a, ONE 0.5 s interval vs a
     # finely-subdivided midpoint integration of the same signal
-    from uvio_tpu.init.cpi import preintegrate
+    from uvio_jax.init.cpi import preintegrate
 
     w = np.array([0.9, -0.4, 1.3])
     a = np.array([0.6, 0.2, -0.8])
@@ -279,7 +279,7 @@ def test_cpi_v1_closed_form_matches_groundtruth():
 def test_cpi_v2_gravity_in_integral():
     """CpiV2 (`cpi/CpiV2.cpp`): gravity folded into alpha/beta, so
     shooting without explicit g terms reproduces the V1 shooting."""
-    from uvio_tpu.init.cpi import preintegrate_v1, preintegrate_v2
+    from uvio_jax.init.cpi import preintegrate_v1, preintegrate_v2
 
     rng = np.random.default_rng(2)
     n = 101
@@ -313,7 +313,7 @@ def test_cpi_v1_autodiff_bias_jacobians():
     the reference's ~200 lines of hand-derived J_q/J_a/J_b/H_a/H_b)."""
     import jax
 
-    from uvio_tpu.init.cpi import preintegrate_v1
+    from uvio_jax.init.cpi import preintegrate_v1
 
     rng = np.random.default_rng(3)
     n = 21

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from uvio_tpu.utils.euroc import EurocDataset
+from uvio_jax.utils.euroc import EurocDataset
 
 
 def make_fixture(tmp_path):
@@ -57,8 +57,8 @@ def test_run_euroc_on_synthetic_dataset(tmp_path):
 
     import cv2
 
-    from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
-    from uvio_tpu.utils.euroc import EurocDataset, run_euroc
+    from uvio_jax.sim import SimParams, Simulator, circle_trajectory
+    from uvio_jax.utils.euroc import EurocDataset, run_euroc
 
     # ---- render the dataset ------------------------------------------
     sim = Simulator(
@@ -163,7 +163,7 @@ cam0:
 
     ds = EurocDataset(str(tmp_path))
     gt = ds.groundtruth()
-    from uvio_tpu.eval import ate
+    from uvio_jax.eval import ate
 
     res = ate(t, q, p, gt["t"], gt["q_GtoI"], gt["p"], method="posyaw")
     assert res["rmse_pos"] < 0.5, res

@@ -5,7 +5,7 @@ consistency report, timing analysis, and the CLI subcommands
 import numpy as np
 import pytest
 
-from uvio_tpu.eval import (
+from uvio_jax.eval import (
     StateRecorder,
     error_simulation,
     load_state_file,
@@ -16,7 +16,7 @@ from uvio_tpu.eval import (
     timing_histogram,
     timing_percentages,
 )
-from uvio_tpu.eval.cli import main as cli_main
+from uvio_jax.eval.cli import main as cli_main
 
 
 def _make_run(tmp_path, n=200, seed=0):
@@ -165,3 +165,56 @@ def test_format_converter_euroc(tmp_path):
     assert abs(data[0, 0] - 1.4e9) < 1.0  # ns -> s
     # identity wxyz -> xyzw last element 1
     assert np.allclose(data[:, 7], 1.0)
+
+
+def test_scope_of_instructions_resolves_fusions():
+    """A fusion without a scope of its own takes the majority scope of
+    the computation it calls; an instruction's own scope wins."""
+    from uvio_jax.eval.device_trace import scope_of_instructions
+
+    hlo = "\n".join([
+        "HloModule jit_f, is_scheduled=true",
+        "%fused_computation (p: f32[4]) -> f32[4] {",
+        '  %mul.1 = f32[4]{0} multiply(%p, %p), metadata={op_name="jit(f)/beta/mul"}',
+        '  ROOT %add.2 = f32[4]{0} add(%mul.1, %p), metadata={op_name="jit(f)/add"}',
+        "}",
+        "ENTRY %main (x: f32[4]) -> f32[4] {",
+        '  %sine = f32[4]{0} sine(%x), metadata={op_name="jit(f)/alpha/sin"}',
+        "  %fusion.7 = f32[4]{0} fusion(%sine), kind=kLoop, calls=%fused_computation,"
+        ' metadata={op_name="jit(f)/add"}',
+        "  ROOT %copy.3 = f32[4]{0} copy(%fusion.7)",
+        "}",
+    ])
+    m = scope_of_instructions(hlo, ("alpha", "beta"))
+    assert m["sine"] == "alpha"
+    assert m["fusion.7"] == "beta"
+    assert "copy.3" not in m
+
+
+def test_time_by_scope_on_recorded_trace(tmp_path):
+    """Reduce a small recorded CPU trace: per-scope times and the rest
+    add up to the module's device time; busy <= window."""
+    import jax
+    import jax.numpy as jnp
+
+    from uvio_jax.eval.device_trace import time_by_scope
+
+    def f(x):
+        with jax.named_scope("alpha"):
+            y = jnp.sin(x) * jnp.cos(x)
+        with jax.named_scope("beta"):
+            z = jnp.exp(y) + 2.0 * y
+        return z.sum()
+
+    x = jnp.linspace(0.0, 1.0, 1 << 16)
+    compiled = jax.jit(f).lower(x).compile()
+    compiled(x).block_until_ready()
+    with jax.profiler.trace(str(tmp_path)):
+        for _ in range(3):
+            compiled(x).block_until_ready()
+    red = time_by_scope(str(tmp_path), compiled.as_text(), "jit_f", ("alpha", "beta"))
+    assert red["module_ns"] > 0
+    assert sum(red["scopes"].values()) + red["other_ns"] == red["module_ns"]
+    assert sum(red["scopes"].values()) > 0
+    assert 0 < red["busy_ns"] <= red["window_ns"]
+    assert 0.0 <= red["idle_share"] < 1.0

@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from uvio_tpu.filter import (
+from uvio_jax.filter import (
     NoiseManager,
     augment_clone,
     ekf_update,
@@ -19,8 +19,8 @@ from uvio_tpu.filter import (
     propagate_mean_cov,
     select_imu_readings_np,
 )
-from uvio_tpu.math import quat_multiply, quat_norm, quat_to_rot, rot_to_quat
-from uvio_tpu.types import StateLayout, init_state
+from uvio_jax.math import quat_multiply, quat_norm, quat_to_rot, rot_to_quat
+from uvio_jax.types import StateLayout, init_state
 
 GRAVITY = 9.81
 RNG = np.random.default_rng(0)
@@ -252,7 +252,7 @@ def test_select_imu_readings():
 def test_native_select_imu_matches_numpy():
     """The C++ native IMU slicer must match the numpy specification
     bit-for-bit (same interpolation in f64)."""
-    from uvio_tpu.native import select_imu_readings as native_fn
+    from uvio_jax.native import select_imu_readings as native_fn
 
     times = np.arange(0, 1.0, 0.01)
     ws = RNG.normal(size=(100, 3))
@@ -263,7 +263,7 @@ def test_native_select_imu_matches_numpy():
 
         pytest.skip("native toolchain unavailable")
     # numpy reference (the fallback body)
-    import uvio_tpu.native as nat
+    import uvio_jax.native as nat
 
     saved = nat.select_imu_readings
     nat.select_imu_readings = lambda *a, **k: None  # force fallback

@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from uvio_tpu.frontend.klt import (
+from uvio_jax.frontend.klt import (
     build_pyramid,
     fast_score,
     grid_detect,
     lk_track,
     ransac_fundamental,
 )
-from uvio_tpu.frontend.tracker import KLTTracker
+from uvio_jax.frontend.tracker import KLTTracker
 
 RNG = np.random.default_rng(8)
 
@@ -88,7 +88,7 @@ def test_ransac_rejects_outliers():
 
 @pytest.mark.slow
 def test_tracker_on_rendered_sim():
-    from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+    from uvio_jax.sim import SimParams, Simulator, circle_trajectory
 
     sim = Simulator(
         SimParams(sim_freq_cam=10.0, num_pts=60, seed=3),
@@ -132,7 +132,7 @@ def textured_image(H=160, W=200, shift=(0, 0), seed=4):
 
 
 def test_descriptor_matching():
-    from uvio_tpu.frontend.descriptor import describe, hamming_match
+    from uvio_jax.frontend.descriptor import describe, hamming_match
 
     img = textured_image()
     pts = [(60.0, 60.0), (140.0, 100.0), (90.0, 40.0)]
@@ -149,8 +149,8 @@ def test_descriptor_matching():
 
 @pytest.mark.slow
 def test_descriptor_tracker_on_rendered_sim():
-    from uvio_tpu.frontend.descriptor import DescriptorTracker
-    from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+    from uvio_jax.frontend.descriptor import DescriptorTracker
+    from uvio_jax.sim import SimParams, Simulator, circle_trajectory
 
     sim = Simulator(
         SimParams(sim_freq_cam=10.0, num_pts=60, seed=3),
@@ -175,8 +175,8 @@ def test_descriptor_tracker_on_rendered_sim():
 @pytest.mark.slow
 def test_stereo_klt_on_rendered_sim():
     """Stereo matching: right-camera obs agree with the true disparity."""
-    from uvio_tpu.frontend.stereo import StereoKLTTracker
-    from uvio_tpu.sim import SimCamera, SimParams, Simulator, circle_trajectory
+    from uvio_jax.frontend.stereo import StereoKLTTracker
+    from uvio_jax.sim import SimCamera, SimParams, Simulator, circle_trajectory
 
     cams = [SimCamera(), SimCamera(p_IinC=np.array([-0.11, 0.0, 0.0]))]
     sim = Simulator(
@@ -216,7 +216,7 @@ def test_hist_equalize_matches_cv2():
     import cv2
     import jax.numpy as jnp
 
-    from uvio_tpu.frontend.klt import hist_equalize
+    from uvio_jax.frontend.klt import hist_equalize
 
     rng = np.random.default_rng(0)
     # low-contrast image with structure
@@ -234,7 +234,7 @@ def test_grid_detect_per_cell_topn():
     (`Grider_FAST.h:73` num-per-cell extraction)."""
     import jax.numpy as jnp
 
-    from uvio_tpu.frontend.klt import grid_detect
+    from uvio_jax.frontend.klt import grid_detect
 
     score = np.zeros((32, 32), np.float32)
     # two strong separated corners in cell (0,0), one in cell (1,1)
@@ -275,7 +275,7 @@ def test_tracker_refills_after_mass_loss():
             x = x0 + int(rng.integers(-2, 3))
             img[y, x] = 230.0
     intr = np.array([200.0, 200.0, W / 2, H / 2, 0, 0, 0, 0])
-    from uvio_tpu.frontend.tracker import KLTTracker
+    from uvio_jax.frontend.tracker import KLTTracker
 
     tr = KLTTracker(intr, num_features=120, grid=(5, 6), histeq="NONE")
     assert tr.per_cell >= 4
@@ -297,7 +297,7 @@ def test_descriptor_rotation_invariance():
     `TrackDescriptor.cpp:355-478`)."""
     from scipy.ndimage import rotate as nd_rotate
 
-    from uvio_tpu.frontend.descriptor import describe, hamming_match
+    from uvio_jax.frontend.descriptor import describe, hamming_match
 
     rng = np.random.default_rng(5)
     H = W = 200
@@ -333,3 +333,23 @@ def test_descriptor_rotation_invariance():
         n_u = (m_u == np.arange(3)).sum()
         assert n_o >= 2, (deg, m_o)
         assert n_o > n_u, (deg, m_o, m_u)
+
+
+@pytest.mark.parametrize("n_free,n_det", [(0, 5), (3, 5), (6, 2), (10, 12)])
+def test_refill_targets_rank_matching(n_free, n_det):
+    """j-th valid detection -> j-th free slot; the rest fall out of range."""
+    from uvio_jax.frontend.klt import refill_targets
+
+    rng = np.random.default_rng(n_free * 31 + n_det)
+    N, G = 10, 12
+    free = np.zeros(N, bool)
+    free[rng.choice(N, n_free, replace=False)] = True
+    det_ok = np.zeros(G, bool)
+    det_ok[rng.choice(G, n_det, replace=False)] = True
+    tgt = np.asarray(refill_targets(jnp.asarray(free), jnp.asarray(det_ok)))
+    free_slots = list(np.nonzero(free)[0])
+    want = np.full(G, N + 1)
+    for j, g in enumerate(np.nonzero(det_ok)[0]):
+        if j < len(free_slots):
+            want[g] = free_slots[j]
+    np.testing.assert_array_equal(tgt, want)

@@ -10,15 +10,12 @@ import jax.numpy as jnp
 
 @pytest.mark.slow
 def test_fused_vio_tracks_and_filters():
-    from uvio_tpu.filter.propagator import select_imu_readings_np
-    from uvio_tpu.frontend.fused_vio import make_fused_vio_step
-    from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
-    from uvio_tpu.types import StateLayout, init_state
+    from uvio_jax.eval.capture import gt_initial_state, render_image_stream
+    from uvio_jax.filter.propagator import select_imu_readings_np
+    from uvio_jax.frontend.fused_vio import make_fused_vio_step
+    from uvio_jax.types import StateLayout
 
-    sim = Simulator(
-        SimParams(sim_freq_imu=200.0, sim_freq_cam=10.0, num_pts=90, seed=9),
-        trajectory=circle_trajectory(duration=12.0),
-    )
+    sim, imgs, stamps, imu = render_image_stream(50, duration=12.0)
     cam = sim.params.cameras[0]
     layout = StateLayout(max_clones=11, max_imu_batch=32, max_slam=0)
     step, make_carry = make_fused_vio_step(
@@ -26,38 +23,7 @@ def test_fused_vio_tracks_and_filters():
     )
     jstep = jax.jit(step)
 
-    imgs, stamps, imu = [], [], []
-    while sim.ok() and len(imgs) < 50:
-        r = sim.get_next_imu()
-        if r is None:
-            break
-        t, wm, am = r
-        imu.append((t, *wm, *am))
-        if sim.cur_cam_t + 1.0 / sim.params.sim_freq_cam <= t:
-            tc = sim.cur_cam_t + 1.0 / sim.params.sim_freq_cam
-            sim.cur_cam_t = tc
-            imgs.append(sim.render_image(tc).astype(np.float32))
-            stamps.append(tc)
-    imu = np.asarray(imu)
-
-    g0 = sim.get_gt_state(stamps[0])
-    f32 = jnp.float32
-    st = init_state(layout, dtype=f32)
-    st = st.replace(
-        time=jnp.asarray(stamps[0], jnp.float64),
-        q=jnp.asarray(g0["q_GtoI"], f32), p=jnp.asarray(g0["p_IinG"], f32),
-        v=jnp.asarray(g0["v_IinG"], f32),
-        bg=jnp.asarray(g0["bg"], f32), ba=jnp.asarray(g0["ba"], f32),
-        q_fej=jnp.asarray(g0["q_GtoI"], f32),
-        p_fej=jnp.asarray(g0["p_IinG"], f32),
-        v_fej=jnp.asarray(g0["v_IinG"], f32),
-        calib_cam_q=jnp.asarray(cam.q_ItoC, f32)[None],
-        calib_cam_p=jnp.asarray(cam.p_IinC, f32)[None],
-        calib_cam_intr=jnp.asarray(cam.intrinsics, f32)[None],
-        cov=jnp.asarray(
-            np.diag([1e-5] * 6 + [1e-4] * 3 + [1e-5] * 6
-                    + [0.0] * (layout.dim - 15)), f32),
-    )
+    st = gt_initial_state(sim, layout, stamps[0])
     carry = make_carry(imgs[0])
     key = jax.random.PRNGKey(0)
     cur = stamps[0]

@@ -7,11 +7,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from uvio_tpu.filter.propagator import dm_matrix, tg_matrix, _h_dm, _h_tg
-from uvio_tpu.manager import CameraConfig, VioConfig, VioManager
-from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
-from uvio_tpu.types.layout import IMU_MODEL_KALIBR, IMU_MODEL_RPNG, StateLayout
-from uvio_tpu.types.state import dm_identity
+from uvio_jax.filter.propagator import dm_matrix, tg_matrix, _h_dm, _h_tg
+from uvio_jax.manager import CameraConfig, VioConfig, VioManager
+from uvio_jax.sim import SimParams, Simulator, circle_trajectory
+from uvio_jax.types.layout import IMU_MODEL_KALIBR, IMU_MODEL_RPNG, StateLayout
+from uvio_jax.types.state import dm_identity
 
 
 def test_dm_identity_roundtrip():

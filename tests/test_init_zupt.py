@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.spatial.transform import Rotation as Rsp
 
-from uvio_tpu.filter import NoiseManager
-from uvio_tpu.init import StaticInitOptions, try_static_init
-from uvio_tpu.math import quat_to_rot, rot_to_quat
-from uvio_tpu.types import StateLayout, init_state
-from uvio_tpu.update.zupt import zupt_try_update
+from uvio_jax.filter import NoiseManager
+from uvio_jax.init import StaticInitOptions, try_static_init
+from uvio_jax.math import quat_to_rot, rot_to_quat
+from uvio_jax.types import StateLayout, init_state
+from uvio_jax.update.zupt import zupt_try_update
 
 RNG = np.random.default_rng(11)
 G = 9.81
@@ -135,7 +135,7 @@ def test_zupt_explicit_constrains_to_clone():
     """Explicit zero-motion variant (`UpdaterZeroVelocity.cpp:283-330`):
     on accept, the propagated IMU pose is pulled toward the newest clone
     and the velocity toward zero."""
-    from uvio_tpu.update.zupt import zupt_explicit_update
+    from uvio_jax.update.zupt import zupt_explicit_update
 
     layout = StateLayout(max_clones=4, max_imu_batch=16)
     R = Rsp.from_euler("xyz", [5, 3, 0], degrees=True).as_matrix()
@@ -188,7 +188,7 @@ def test_zupt_explicit_constrains_to_clone():
 def test_zupt_explicit_falls_back_without_clone():
     """No clone in the state yet -> the explicit variant applies the
     plain inertial update instead."""
-    from uvio_tpu.update.zupt import zupt_explicit_update
+    from uvio_jax.update.zupt import zupt_explicit_update
 
     layout = StateLayout(max_clones=4, max_imu_batch=16)
     R = np.eye(3)

@@ -7,7 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from uvio_tpu.filter.propagator import (
+from uvio_jax.filter.propagator import (
     NoiseManager,
     _analytic_mean,
     _discrete_mean,
@@ -15,9 +15,9 @@ from uvio_tpu.filter.propagator import (
     _xi_sum,
     propagate_mean_cov,
 )
-from uvio_tpu.math import quat_multiply, quat_to_rot
-from uvio_tpu.types.layout import StateLayout
-from uvio_tpu.types.state import init_state
+from uvio_jax.math import quat_multiply, quat_to_rot
+from uvio_jax.types.layout import StateLayout
+from uvio_jax.types.state import init_state
 
 GRAVITY = 9.81
 
@@ -98,7 +98,7 @@ def test_phi_matches_autodiff_all_methods(method):
     noises = NoiseManager()
     D = layout.dim
 
-    from uvio_tpu.filter.ekf import inject
+    from uvio_jax.filter.ekf import inject
 
     def mean_map(dx15):
         dx = jnp.zeros(D).at[:15].set(dx15)
@@ -143,8 +143,8 @@ def test_methods_agree_with_rk4(method):
 @pytest.mark.parametrize("method", ["discrete", "analytical"])
 def test_sim_tracks_all_methods(method):
     """End-to-end: each integration option must track the sim."""
-    from uvio_tpu.manager import CameraConfig, VioConfig, VioManager
-    from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+    from uvio_jax.manager import CameraConfig, VioConfig, VioManager
+    from uvio_jax.sim import SimParams, Simulator, circle_trajectory
 
     sim = Simulator(SimParams(seed=11), trajectory=circle_trajectory(duration=14.0))
     cam = sim.params.cameras[0]

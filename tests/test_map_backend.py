@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from uvio_tpu.manager import CameraConfig, VioConfig, VioManager
-from uvio_tpu.math import quat_to_rot
-from uvio_tpu.parallel import BAOptions, MapBackend, MapBackendOptions, ba_solve
-from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+from uvio_jax.manager import CameraConfig, VioConfig, VioManager
+from uvio_jax.math import quat_to_rot
+from uvio_jax.parallel import BAOptions, MapBackend, MapBackendOptions, ba_solve
+from uvio_jax.sim import SimParams, Simulator, circle_trajectory
 
 
 def test_ba_pose_valid_padding_inert():

@@ -4,7 +4,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from uvio_tpu.pipeline import HostPipeline
+from uvio_jax.pipeline import HostPipeline
 
 
 def test_host_pipeline_order_and_content():
@@ -38,8 +38,8 @@ def test_host_pipeline_overlaps_consumer():
 
 
 def _tiny_vio(on_cov_fail):
-    from uvio_tpu.manager import CameraConfig, VioConfig, VioManager
-    from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+    from uvio_jax.manager import CameraConfig, VioConfig, VioManager
+    from uvio_jax.sim import SimParams, Simulator, circle_trajectory
 
     sim = Simulator(
         SimParams(sim_freq_imu=200.0, sim_freq_cam=10.0, num_pts=30, seed=3),
@@ -83,7 +83,7 @@ def test_cov_fail_raises_on_injected_nan():
     and raise (reference exits the process, `StateHelper.cpp:102-113`)."""
     import pytest
 
-    from uvio_tpu.manager import CovarianceError
+    from uvio_jax.manager import CovarianceError
 
     sim, mgr = _tiny_vio("raise")
     assert _run_frames(sim, mgr, 5) == 5

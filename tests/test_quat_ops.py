@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation as Rsp
 
-from uvio_tpu.math import (
+from uvio_jax.math import (
     axis_angle_to_quat,
     exp_se3,
     exp_so3,

@@ -12,10 +12,10 @@ EuRoC dataset runs of `run_simulation`/`run_subscribe` +
 import numpy as np
 import pytest
 
-from uvio_tpu.eval import ate
-from uvio_tpu.frontend.tracker import KLTTracker
-from uvio_tpu.manager import CameraConfig, VioConfig, VioManager
-from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+from uvio_jax.eval import ate
+from uvio_jax.frontend.tracker import KLTTracker
+from uvio_jax.manager import CameraConfig, VioConfig, VioManager
+from uvio_jax.sim import SimParams, Simulator, circle_trajectory
 
 
 @pytest.mark.slow
@@ -26,7 +26,7 @@ def test_hard_rendered_images_to_filter_ate():
         trajectory=circle_trajectory(duration=19.0, still_time=still),
     )
     cam = sim.params.cameras[0]
-    from uvio_tpu.init import StaticInitOptions
+    from uvio_jax.init import StaticInitOptions
 
     cfg = VioConfig(
         max_clones=11,

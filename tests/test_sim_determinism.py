@@ -6,9 +6,9 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from uvio_tpu.cam import distort
-from uvio_tpu.math import quat_to_rot
-from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+from uvio_jax.cam import distort
+from uvio_jax.math import quat_to_rot
+from uvio_jax.sim import SimParams, Simulator, circle_trajectory
 
 
 def _collect(seed, n_imu=200, n_cam=10):

@@ -5,9 +5,9 @@ reference CI's `roslaunch ov_msckf simulation.launch` smoke run plus
 import numpy as np
 import pytest
 
-from uvio_tpu.eval import ate, nees
-from uvio_tpu.manager import CameraConfig, VioConfig, VioManager
-from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
+from uvio_jax.eval import ate, nees
+from uvio_jax.manager import CameraConfig, VioConfig, VioManager
+from uvio_jax.sim import SimParams, Simulator, circle_trajectory
 
 
 def run_sim(max_slam=0, duration=12.0, seed=7):
@@ -110,7 +110,7 @@ def test_slam_improves_accuracy():
 @pytest.mark.slow
 def test_stereo_beats_mono():
     """Stereo baseline gives metric scale: must outperform mono."""
-    from uvio_tpu.sim import SimCamera
+    from uvio_jax.sim import SimCamera
 
     def run_stereo(duration=10.0, seed=21):
         cams = [SimCamera(), SimCamera(p_IinC=np.array([-0.11, 0.0, 0.0]))]
@@ -293,7 +293,7 @@ def test_online_extrinsic_calibration():
 
     import jax.numpy as jnp
 
-    from uvio_tpu.math import quat_to_rot, rot_to_quat
+    from uvio_jax.math import quat_to_rot, rot_to_quat
 
     sim = Simulator(SimParams(seed=13), trajectory=circle_trajectory(duration=26.0))
     cam = sim.params.cameras[0]  # true extrinsics: identity / zero

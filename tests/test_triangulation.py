@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.spatial.transform import Rotation as Rsp
 
-from uvio_tpu.update import refine_gauss_newton, triangulate_batch, triangulate_linear
+from uvio_jax.update import refine_gauss_newton, triangulate_batch, triangulate_linear
 
 RNG = np.random.default_rng(5)
 

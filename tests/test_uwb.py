@@ -7,9 +7,9 @@ import pytest
 import numpy as np
 from scipy.spatial.transform import Rotation as Rsp
 
-from uvio_tpu.math import quat_to_rot, rot_to_quat
-from uvio_tpu.types import StateLayout, init_state
-from uvio_tpu.update.uwb import _range_jacobian, predicted_range, uwb_update
+from uvio_jax.math import quat_to_rot, rot_to_quat
+from uvio_jax.types import StateLayout, init_state
+from uvio_jax.update.uwb import _range_jacobian, predicted_range, uwb_update
 
 RNG = np.random.default_rng(2)
 
@@ -43,7 +43,7 @@ def test_range_jacobian_matches_autodiff():
         H, d = _range_jacobian(s, layout, jnp.int32(aidx))
 
         # numeric: perturb each state block through the boxplus used by inject
-        from uvio_tpu.filter.ekf import inject
+        from uvio_jax.filter.ekf import inject
 
         def yhat_of_dx(dx):
             sp = inject(s, layout, dx)
@@ -109,8 +109,8 @@ def test_uwb_invalid_anchor_ignored():
 
 
 def test_uvio_manager_drain():
-    from uvio_tpu.uwb_manager import AnchorConfig, UVioConfig, UVioManager
-    from uvio_tpu.manager import CameraConfig
+    from uvio_jax.uwb_manager import AnchorConfig, UVioConfig, UVioManager
+    from uvio_jax.manager import CameraConfig
 
     anchors = [
         AnchorConfig(anchor_id=10, p_AinG=np.array([3.0, 0, 1.5])),
@@ -163,8 +163,8 @@ def test_uvio_manager_preserves_base_config():
     `_layout_extras`, matching `UVioManager.cpp:26-55` which extends the
     base state instead of replacing it.
     """
-    from uvio_tpu.manager import CameraConfig
-    from uvio_tpu.uwb_manager import AnchorConfig, UVioConfig, UVioManager
+    from uvio_jax.manager import CameraConfig
+    from uvio_jax.uwb_manager import AnchorConfig, UVioConfig, UVioManager
 
     cfg = UVioConfig(
         max_clones=5,
@@ -211,8 +211,8 @@ def test_uvio_manager_preserves_base_config():
 def test_runtime_anchor_initialization():
     """Anchors arriving at runtime: best-determinant fixed, others
     estimated; late additions supported."""
-    from uvio_tpu.manager import CameraConfig
-    from uvio_tpu.uwb_manager import AnchorConfig, UVioConfig, UVioManager
+    from uvio_jax.manager import CameraConfig
+    from uvio_jax.uwb_manager import AnchorConfig, UVioConfig, UVioManager
 
     cfg = UVioConfig(max_clones=4, max_anchors=6, cameras=[CameraConfig()])
     mgr = UVioManager(cfg)
@@ -237,10 +237,10 @@ def _run_uwb_sim(dtype="float64", duration=10.0, seed=7, fused_frames_out=None):
     """Full UWB-aided run: 4 biased anchors with imperfect position
     priors (the bench.py configuration) — the e2e path that the round-2
     f32 constructor crash escaped because no test built a float32
-    manager (VERDICT r2 weak #1)."""
-    from uvio_tpu.manager import CameraConfig
-    from uvio_tpu.sim import SimParams, Simulator, circle_trajectory
-    from uvio_tpu.uwb_manager import AnchorConfig, UVioConfig, UVioManager
+    manager."""
+    from uvio_jax.manager import CameraConfig
+    from uvio_jax.sim import SimParams, Simulator, circle_trajectory
+    from uvio_jax.uwb_manager import AnchorConfig, UVioConfig, UVioManager
 
     uwb_anchors = {
         1: (np.array([4.0, 4.0, 2.0]), 0.15, 0.01),
@@ -325,10 +325,10 @@ def test_uvio_manager_f32_anchors_fused_frames():
 
 @pytest.mark.slow
 def test_uwb_e2e_ate():
-    """UWB e2e accuracy regression (VERDICT r2 item #8): 4 biased
+    """UWB e2e accuracy regression: 4 biased
     anchors, imperfect priors, ATE-gated. UWB must also beat pure VIO
     drift on position over the same stream."""
-    from uvio_tpu.eval import ate
+    from uvio_jax.eval import ate
 
     est, gt, _ = _run_uwb_sim(dtype="float64", duration=10.0)
     res = ate(est["t"], est["q"], est["p"], est["t"], gt["q"], gt["p"], method="none")

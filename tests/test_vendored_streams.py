@@ -1,138 +1,55 @@
 """Deterministic recorded-stream regression on VENDORED data.
 
 The committed stand-in for the reference's serial-bag dataset regression
-(`ov_msckf/src/ros1_serial_msckf.cpp`): replay the vendored mono
-head-to-head streams (data/streams/mono, generated once by the
-head-to-head driver) through the full manager and gate the ATE against
+(`ov_msckf/src/ros1_serial_msckf.cpp`): replay the vendored head-to-head
+streams (data/streams/{mono,stereo,uwb}, generated once by the
+head-to-head program) through the full manager and gate the ATE against
 the simulator groundtruth — and against the reference estimator's own
-recorded output on the identical streams. Needs NO /root/reference
-mount.
+recorded output on the identical streams. Needs no reference checkout.
 """
 
 import dataclasses
 import os
 
-import numpy as np
 import pytest
 
-DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "data", "streams", "mono")
+STREAMS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "data", "streams")
+
+
+def _run(name, manager_cls, feed_uwb=False):
+    from uvio_jax.eval.replay import ate_vs_reference, replay
+    from uvio_jax.utils.config import load_config
+
+    data = os.path.join(STREAMS, name)
+    cfg, extras = load_config(os.path.join(data, "config"))
+    cfg = dataclasses.replace(cfg, use_static_init=False, use_dynamic_init=False)
+    mgr = manager_cls(cfg)
+    est_t, est_q, est_p = replay(data, cfg, mgr, feed_uwb=feed_uwb)
+    assert len(est_t) > 400
+    ours, ref = ate_vs_reference(data, est_t, est_q, est_p)
+    return data, mgr, ours, ref
 
 
 @pytest.mark.slow
 def test_vendored_mono_stream_replay():
-    from uvio_tpu.eval.traj import ate, load_tum
-    from uvio_tpu.manager import VioManager
-    from uvio_tpu.utils.config import load_config
+    from uvio_jax.manager import VioManager
 
-    cfg, extras = load_config(os.path.join(DATA, "config"))
-    cfg = dataclasses.replace(cfg, use_static_init=False, use_dynamic_init=False)
-    mgr = VioManager(cfg)
-    init = np.loadtxt(os.path.join(DATA, "init.txt"))
-    mgr.initialize_with_gt(init[0], init[1:5], init[5:8], init[8:11],
-                           init[11:14], init[14:17])
-
-    imu = np.loadtxt(os.path.join(DATA, "imu.csv.gz"), delimiter=",")
-    cam = np.loadtxt(os.path.join(DATA, "cam.csv.gz"), delimiter=",")
-    frames = []
-    tv, idx = np.unique(cam[:, 0], return_index=True)
-    for t in tv[np.argsort(idx)]:
-        rc = cam[cam[:, 0] == t]
-        frames.append((float(t), [(rc[:, 2].astype(np.int64), rc[:, 3:5])]))
-    frames.sort(key=lambda f: f[0])
-
-    est_t, est_q, est_p = [], [], []
-    fi = 0
-    for k in range(imu.shape[0]):
-        t = float(imu[k, 0])
-        mgr.feed_imu(t, imu[k, 1:4], imu[k, 4:7])
-        while fi + 1 < len(frames) and frames[fi + 1][0] <= t:
-            ti, obs = frames[fi]
-            if ti > float(init[0]):
-                mgr.feed_features(ti, obs)
-                est_t.append(float(mgr.state.time))
-                est_q.append(np.asarray(mgr.state.q))
-                est_p.append(np.asarray(mgr.state.p))
-            fi += 1
-
-    assert len(est_t) > 400
-    tg, qg, pg = load_tum(os.path.join(DATA, "gt.txt"))
-    ours = ate(np.asarray(est_t), np.asarray(est_q), np.asarray(est_p),
-               tg, qg, pg, method="se3")
-    tr, qr, pr = load_tum(os.path.join(DATA, "ref_est.txt"))
-    ref = ate(tr, qr, pr, tg, qg, pg, method="se3")
+    _, _, ours, ref = _run("mono", VioManager)
     # parity gate: within 20% of the reference's own result on these
-    # exact streams (r3/r4 measured ~10% BETTER; the slack absorbs
-    # platform jitter without letting a real regression through)
+    # exact streams (measured ~10% better; the slack absorbs platform
+    # jitter without letting a real regression through)
     assert ours["rmse_pos"] <= 1.2 * ref["rmse_pos"], (ours, ref)
     assert ours["rmse_ori_deg"] <= 1.2 * ref["rmse_ori_deg"], (ours, ref)
-
-
-def _replay(data_dir, cfg, mgr, feed_uwb=False):
-    import numpy as np
-
-    init = np.loadtxt(os.path.join(data_dir, "init.txt"))
-    mgr.initialize_with_gt(init[0], init[1:5], init[5:8], init[8:11],
-                           init[11:14], init[14:17])
-    imu = np.loadtxt(os.path.join(data_dir, "imu.csv.gz"), delimiter=",")
-    cam = np.loadtxt(os.path.join(data_dir, "cam.csv.gz"), delimiter=",")
-    uwb_sets = []
-    if feed_uwb:
-        rows = np.loadtxt(os.path.join(data_dir, "uwb.csv.gz"), delimiter=",")
-        tv, idx = np.unique(rows[:, 0], return_index=True)
-        for t_u in tv[np.argsort(idx)]:
-            rr = rows[rows[:, 0] == t_u]
-            uwb_sets.append((float(t_u), {int(a): float(d) for a, d in rr[:, 1:3]}))
-        uwb_sets.sort(key=lambda s: s[0])
-    frames = []
-    tv, idx = np.unique(cam[:, 0], return_index=True)
-    for t in tv[np.argsort(idx)]:
-        rc = cam[cam[:, 0] == t]
-        per_cam = []
-        for c in range(len(cfg.cameras)):
-            r2 = rc[rc[:, 1] == c]
-            per_cam.append((r2[:, 2].astype(np.int64), r2[:, 3:5]))
-        frames.append((float(t), per_cam))
-    frames.sort(key=lambda f: f[0])
-
-    est_t, est_q, est_p = [], [], []
-    fi = ui = 0
-    dt_cam = float(getattr(cfg, "camimu_dt", 0.0))
-    for k in range(imu.shape[0]):
-        t = float(imu[k, 0])
-        mgr.feed_imu(t, imu[k, 1:4], imu[k, 4:7])
-        while ui < len(uwb_sets) and uwb_sets[ui][0] <= t - dt_cam:
-            mgr.feed_uwb(uwb_sets[ui][0], uwb_sets[ui][1])
-            ui += 1
-        while fi + 1 < len(frames) and frames[fi + 1][0] <= t:
-            ti, obs = frames[fi]
-            if ti > float(init[0]):
-                mgr.feed_features(ti, obs)
-                est_t.append(float(mgr.state.time))
-                est_q.append(np.asarray(mgr.state.q))
-                est_p.append(np.asarray(mgr.state.p))
-            fi += 1
-    return np.asarray(est_t), np.asarray(est_q), np.asarray(est_p)
 
 
 @pytest.mark.slow
 def test_vendored_stereo_stream_replay():
     """Stereo+SLAM replay on vendored streams, gated against the
     reference's own recorded estimate on the identical streams."""
-    from uvio_tpu.eval.traj import ate, load_tum
-    from uvio_tpu.manager import VioManager
-    from uvio_tpu.utils.config import load_config
+    from uvio_jax.manager import VioManager
 
-    data = os.path.join(os.path.dirname(DATA), "stereo")
-    cfg, extras = load_config(os.path.join(data, "config"))
-    cfg = dataclasses.replace(cfg, use_static_init=False, use_dynamic_init=False)
-    mgr = VioManager(cfg)
-    est_t, est_q, est_p = _replay(data, cfg, mgr)
-    assert len(est_t) > 400
-    tg, qg, pg = load_tum(os.path.join(data, "gt.txt"))
-    ours = ate(est_t, est_q, est_p, tg, qg, pg, method="se3")
-    tr, qr, pr = load_tum(os.path.join(data, "ref_est.txt"))
-    ref = ate(tr, qr, pr, tg, qg, pg, method="se3")
+    _, _, ours, ref = _run("stereo", VioManager)
     assert ours["rmse_pos"] <= 1.2 * ref["rmse_pos"], (ours, ref)
     assert ours["rmse_ori_deg"] <= 1.2 * ref["rmse_ori_deg"], (ours, ref)
 
@@ -141,37 +58,13 @@ def test_vendored_stereo_stream_replay():
 def test_vendored_uwb_stream_replay():
     """UWB-aided replay on vendored streams: trajectory ATE and final
     anchor-state accuracy gated against the reference's recorded run."""
-    from uvio_tpu.eval.traj import ate, load_tum
-    from uvio_tpu.utils.config import load_config
-    from uvio_tpu.uwb_manager import UVioManager
+    from uvio_jax.eval.replay import anchor_rms_errors
+    from uvio_jax.uwb_manager import UVioManager
 
-    data = os.path.join(os.path.dirname(DATA), "uwb")
-    cfg, extras = load_config(os.path.join(data, "config"))
-    cfg = dataclasses.replace(cfg, use_static_init=False, use_dynamic_init=False)
-    mgr = UVioManager(cfg)
-    est_t, est_q, est_p = _replay(data, cfg, mgr, feed_uwb=True)
-    assert len(est_t) > 400
-    tg, qg, pg = load_tum(os.path.join(data, "gt.txt"))
-    ours = ate(est_t, est_q, est_p, tg, qg, pg, method="se3")
-    tr, qr, pr = load_tum(os.path.join(data, "ref_est.txt"))
-    ref = ate(tr, qr, pr, tg, qg, pg, method="se3")
+    data, mgr, ours, ref = _run("uwb", UVioManager, feed_uwb=True)
     # h2h wins ~3.5x; the gate only demands parity
     assert ours["rmse_pos"] <= ref["rmse_pos"], (ours, ref)
 
     # final anchor accuracy vs truth, at least as good as the reference
-    truth = {}
-    with open(os.path.join(data, "uwb_truth.csv")) as f:
-        rows = f.read().strip().splitlines()[1:]
-    for ln in rows:
-        p = [float(x) for x in ln.split(",")]
-        truth[int(p[0])] = np.asarray(p[1:4])
-    ref_rows = np.atleast_2d(np.loadtxt(os.path.join(data, "anchors_est.txt")))
-    ref_err = np.sqrt(np.mean([
-        np.linalg.norm(r[1:4] - truth[int(r[0])]) ** 2 for r in ref_rows
-    ]))
-    st = mgr.state
-    our_err = np.sqrt(np.mean([
-        np.linalg.norm(np.asarray(st.anchors_p[slot]) - truth[aid]) ** 2
-        for aid, slot in mgr.anchor_slot_by_id.items()
-    ]))
+    our_err, ref_err = anchor_rms_errors(data, mgr)
     assert our_err <= ref_err, (our_err, ref_err)
